@@ -280,14 +280,9 @@ class RunConfig:
     census_rr: bool = True
     census_rr_hi: float = 0.85
     census_rr_lo: float = 0.60
-    # Pallas flight megakernel (plan M4): "auto" uses it on TPU when the
-    # grid fits the kernel's zone cap and n_slots/device is a multiple
-    # of the 1024-photon tile; "on"/"off" force it. The XLA while_loop
-    # path remains the fallback (and the CPU-test path).
-    pallas_tracking: str = "auto"
     # shard the zone-batched phases (volume_em / FP solve / pair
     # tensors) over the device mesh and all-gather the small per-zone
-    # results — the TPU analogue of the reference's FP zone farm
+    # results — the device-mesh analogue of the reference's FP zone farm
     # (update2d.f:190-214, fp_mpi.f:612-852). Replicated zone compute
     # is otherwise the Amdahl floor at scale. No-op on 1 device.
     zone_shard: bool = True

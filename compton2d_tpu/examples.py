@@ -149,7 +149,7 @@ def mrk421(
     a shock front injecting a power-law electron population; synchrotron
     volume emission + SSC produce the broadband SED; light curves are
     Doppler-boosted in post-processing with Gamma = 33
-    (BASELINE.json config 5, postprocessing/mrk421_lc.input)."""
+    (postprocessing/mrk421_lc.input)."""
     from compton2d_tpu.config import InjectionConfig
 
     grid = GridConfig(

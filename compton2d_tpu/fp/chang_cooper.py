@@ -88,9 +88,8 @@ def pcr_solve(
 
     Solves the same tridiagonal systems as :func:`thomas_solve` but in
     ceil(log2 N) full-width vector rounds instead of 2N sequential scan
-    steps — on TPU the Thomas scan over the 200-bin axis is pure
-    latency (each step touches only the small zone batch), while PCR
-    keeps the VPU busy with (Z, N) elementwise work. The Chang-Cooper
+    steps: each Thomas step touches only the small zone batch, while
+    PCR does (Z, N) elementwise work per round. The Chang-Cooper
     systems are strictly diagonally dominant (b >= 1 + positive terms,
     a, c <= 0, update2d.f:1363-1390), for which PCR is stable. Results
     agree with Thomas to f32 roundoff (tests/test_fp.py)."""

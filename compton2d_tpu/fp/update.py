@@ -141,9 +141,11 @@ def fp_step(
     e_el_old = jnp.sum(jnp.where(valid, e_tot(f_old, ne), 0.0))
 
     # ---- static drift pieces -----------------------------------------
-    # IC drift: (Z, nph) @ (nph, num_nt) on the MXU (update2d.f:568-574)
+    # IC drift: (Z, nph) @ (nph, num_nt) (update2d.f:568-574)
     nf = n_field.reshape(Z, -1).astype(f32)
-    dg_ic = -(nf @ tables.f_ic.T) * (k_dgic / volume[:, None])
+    dg_ic = -jnp.matmul(nf, tables.f_ic.T, precision=jax.lax.Precision.HIGHEST) * (
+        k_dgic / volume[:, None]
+    )
 
     f_sy = 1.058e-15 * B * B / cn.MEC2_ERG             # (Z,) 1/s
     dg_A = gamma[None, :] / t_acc
@@ -472,8 +474,11 @@ def fp_step(
     lg = jnp.log(gamma)
     # f_pl ~ gamma^-p e^-y: mean gamma over the PL for each candidate p
     gp = jnp.exp(-p_cand[:, None] * lg[None, :])        # (P, num_nt)
-    denom_p = jnp.einsum("zg,pg->zp", base, gp) + 1e-30
-    numer_p = jnp.einsum("zg,pg->zp", base * gamma[None, :], gp)
+    hi = jax.lax.Precision.HIGHEST
+    denom_p = jnp.einsum("zg,pg->zp", base, gp, precision=hi) + 1e-30
+    numer_p = jnp.einsum(
+        "zg,pg->zp", base * gamma[None, :], gp, precision=hi
+    )
     miss = jnp.abs(numer_p / denom_p - sum_e_mean[:, None])
     p_eff = p_cand[jnp.argmin(miss, axis=-1)]
     pure_th = amxwl_eff > 0.9999
@@ -596,7 +601,7 @@ def photon_fill(
     # dT_c from the same dg_ic contraction as FP_calc
     # (update2d.f:1864-1872)
     nf = n_field.reshape(Z, -1).astype(f32)
-    dg_ic = -(nf @ tables.f_ic.T) * (
+    dg_ic = -jnp.matmul(nf, tables.f_ic.T, precision=jax.lax.Precision.HIGHEST) * (
         jnp.float32(scales.nfield_to_dgic) / volume[:, None]
     )
     dT_c = -(2.0 / 3.0) * jnp.float32(cn.MEC2_ERG) * jnp.sum(

@@ -1,13 +1,13 @@
 """Multi-process (multi-host) scale-out.
 
 The reference scales with MPI ranks exchanging photons through a master
-(`/root/reference/src/imcredist.f`, `vol_mpi.f`, `surf_mpi.f`); the TPU
+(`src/imcredist.f`, `vol_mpi.f`, `surf_mpi.f`); this
 design replaces every one of those patterns (SURVEY.md §2.7):
 
 - zone state is replicated (P1 broadcast is free),
 - zone work is batched (P2 task farms disappear),
 - the photon population is sharded over the *global* device mesh (P3) —
-  across hosts the `psum` tally reductions ride DCN collectives that
+  across processes the `psum` tally reductions are collectives that
   XLA inserts; no explicit photon exchange is needed because every
   device owns an equal photon budget against replicated zone state
   (what imcredist rebalanced by hand),
@@ -38,10 +38,11 @@ def initialize(
     process_id: int,
     local_device_count: int | None = None,
 ):
-    """jax.distributed bring-up (idempotent)."""
+    """jax.distributed bring-up (idempotent). ``local_device_count``
+    limits this process to its first that many local devices."""
     kw = {}
     if local_device_count is not None:
-        kw["num_local_devices"] = local_device_count
+        kw["local_device_ids"] = list(range(local_device_count))
     try:
         jax.distributed.initialize(
             coordinator_address=coordinator_address,

@@ -1,7 +1,7 @@
 """Device mesh + sharding specs for the photon-parallel step.
 
-The reference's distributed structure (SURVEY.md §2.7) maps onto the TPU
-mesh as:
+The reference's distributed structure (SURVEY.md §2.7) maps onto a
+1-D device mesh as:
 
 - P1 replicated-state broadcast  -> zone fields replicated (free);
 - P2 zone task farms             -> batched compute (no comm at all);
@@ -21,22 +21,13 @@ import jax
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
-try:  # jax >= 0.6 exposes shard_map at top level
-    from jax import shard_map as _shard_map
 
-    def shard_map(f, mesh, in_specs, out_specs, check_vma=False):
-        return _shard_map(
-            f, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-            check_vma=check_vma,
-        )
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map as _shard_map_old
+def shard_map(f, mesh, in_specs, out_specs, check_vma=False):
+    return jax.shard_map(
+        f, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
+        check_vma=check_vma,
+    )
 
-    def shard_map(f, mesh, in_specs, out_specs, check_vma=False):
-        return _shard_map_old(
-            f, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-            check_rep=check_vma,
-        )
 
 AXIS = "photons"
 

@@ -7,12 +7,12 @@ sigma_E(x, gamma) of Coppi & Blandford 1990 (their eq. 2.3, evaluated via
 the dilogarithm as in ``comtot2d.f:337-352``), integrated over the zone's
 hybrid electron distribution f_nt.
 
-TPU design: instead of the reference's per-photon, per-zone 200-term sum
+Design: instead of the reference's per-photon, per-zone 200-term sum
 (memoized per particle in ``imctrk2d.f:170-187``), sigma_E is precomputed
 once (host numpy, float64 — the device is float32-only, see
 compton2d_tpu.units) on the static (n_vol photon-energy) x (num_nt gamma)
 grid and contracted against the per-zone electron distributions with a
-single matmul each step — (zones, num_nt) @ (num_nt, n_vol) on the MXU.
+single matmul each step — (zones, num_nt) @ (num_nt, n_vol).
 Tracking then only gathers + log-interpolates the per-zone table.
 
 Also provides the closed-form total Klein-Nishina cross section
@@ -128,7 +128,7 @@ def zone_sigma_table(
 ) -> jnp.ndarray:
     """Per-zone macroscopic Compton cross section [1/cm] on the photon
     energy grid: ``n_e * sum_i sigma_E(E, gamma_i) f_nt(i) dgamma_i``
-    (``comtot2d.f:219-247``), as one MXU matmul over all zones.
+    (``comtot2d.f:219-247``), as one matmul over all zones.
 
     Returns shape (nz, nr, n_E). ``sigma_tab`` may be pre-scaled by the
     length unit (Tables stores sigma_E * L so the result is in 1/L,
@@ -137,7 +137,7 @@ def zone_sigma_table(
     dg = jnp.diff(gnt)                       # (num_nt-1,)
     w = jnp.concatenate([dg, dg[-1:] * 0.0])  # trapezoid-left, last bin 0
     fw = f_nt * w                             # (nz, nr, num_nt)
-    # contract gamma axis on the MXU
+    # contract the gamma axis
     sig = jnp.einsum(
         "zrg,eg->zre", fw, sigma_tab, preferred_element_type=jnp.float32,
         precision=jax.lax.Precision.HIGHEST

@@ -19,7 +19,7 @@ Re-implements the active paths of ``/root/reference/src/volume2d.f``
   imcgen2d.f:328-331; we keep bremsstrahlung as a diagnostic);
 - equipartition magnetic field options (ep_switch, imcgen2d.f:216-236).
 
-TPU design: the synchrotron function F(t) is a universal 1-D shape,
+Design: the synchrotron function F(t) is a universal 1-D shape,
 tabulated once on a log grid (host numpy f64 -> f32 device constant);
 the per-zone (n_vol x num_nt) contraction against f_nt then uses
 gathers + matmul-style reductions batched over zones.
@@ -92,9 +92,8 @@ def sync_kernel(t: np.ndarray) -> np.ndarray:
 
 class SyncKernelTable(NamedTuple):
     """Log-spaced f32 device table of sync_kernel (kept for checkpoint /
-    Tables compatibility; the hot path now evaluates the closed-form
-    kernel on the VPU — table-gather interpolation measured 300 ms/step
-    on v5e at bench shapes vs sub-ms for the elementwise fits)."""
+    Tables compatibility; the hot path evaluates the closed-form kernel
+    elementwise instead of interpolating this table)."""
 
     log_t: jnp.ndarray
     val: jnp.ndarray
@@ -149,7 +148,7 @@ def _expk43_f32(ts: jnp.ndarray) -> jnp.ndarray:
 
 def sync_kernel_f32(t: jnp.ndarray) -> jnp.ndarray:
     """Device closed-form synchrotron spectral shape (volume2d.f:206-216)
-    — pure VPU math, no table gathers."""
+    — elementwise math, no table gathers."""
     ts = jnp.clip(t, 1e-12, 2.0e4)
     e43 = _expk43_f32(ts)
     e13 = _expk13_f32(ts)
@@ -270,11 +269,16 @@ def volume_em(
             3.0 * gamma[None, :] ** 2 * (nu_b / _NU_FOLD)
         )
         es = face * sync_kernel_f32(t)            # (n_vol, num_nt)
-        j_sy = (es @ (f * wdg)) * nez / (4.0 * jnp.pi)
+        j_sy = jnp.matmul(es, f * wdg, precision=jax.lax.Precision.HIGHEST) * nez / (
+            4.0 * jnp.pi
+        )
         # absorption integral (volume2d.f:232-239)
         dfg = f / gamp
         slope = jnp.concatenate([dfg[:-1] - dfg[1:], dfg[-1:] * 0.0])
-        kap_sy = (es @ (slope * gamp)) * nez * k_kap_sy / (nu21 * nu21)
+        kap_sy = (
+            jnp.matmul(es, slope * gamp, precision=jax.lax.Precision.HIGHEST)
+            * nez * k_kap_sy / (nu21 * nu21)
+        )
         kap_sy = jnp.abs(kap_sy)
         below_plasma = nu21 <= nu_p21
         j_sy = jnp.where(below_plasma, 0.0, j_sy)

@@ -6,8 +6,8 @@ Jones (1968): ``/root/reference/src/icloss2d.f``. Precomputed once at
 setup (host numpy float64 — the device is float32-only) on the
 (num_nt gamma) x (nphfield photon-energy) grid; the FP solve contracts it
 against the tallied radiation field ``n_field`` to get the per-bin IC
-drift dg_ic (update2d.f:568-574) — on TPU that contraction is a
-(zones, nphfield) @ (nphfield, num_nt) matmul.
+drift dg_ic (update2d.f:568-574) as a (zones, nphfield) @
+(nphfield, num_nt) matmul.
 
 The reference's f_Li series (icloss2d.f:104-125) converges as 1/n^2 and
 needs ~1e5 terms near threshold; here it is evaluated in closed form via

@@ -13,7 +13,7 @@ of ``volume2d.f:401-441``:
 - the Wien-tail smoothing of the noisy MC photon field (nph_smooth,
   pp2d.f:366-457) as a vectorized grid-search fit.
 
-TPU design: every physics kernel that depends only on the *static*
+Design: every physics kernel that depends only on the *static*
 energy/gamma grids is precomputed host-side (numpy f64) into a tensor —
 G(eps_out, eps_in) for the opacity, F(gamma, eps1, eps2) for pair
 production, V(gamma_e, gamma_p) for annihilation — so the per-step
@@ -160,7 +160,7 @@ def dn_pp_from_field(
     nph_phys: jnp.ndarray,     # (Z, n_gg) photons / cm^3 / keV
     pp_tensor: jnp.ndarray,    # (num_nt, n_gg, n_gg) f32
 ) -> jnp.ndarray:
-    """dn_pp(z, gamma) via two MXU contractions."""
+    """dn_pp(z, gamma) via two tensor contractions."""
     # T[z, g, p1] = sum_p2 F[g, p1, p2] n(z, p2)
     t = jnp.einsum(
         "gpq,zq->zgp", pp_tensor, nph_phys,
@@ -210,8 +210,10 @@ def pa_rates(
     """Annihilation sinks dne_pa, dnp_pa (pa_calc, pp2d.f:187-250)."""
     dg = jnp.diff(gnt)
     w = jnp.concatenate([dg, dg[-1:] * 0.0])
-    pa_el = (n_pos * w) @ vs.T        # (Z, num_nt): rate per electron
-    pa_po = (f_nt * w) @ vs           # (Z, num_nt): rate per positron
+    hi = jax.lax.Precision.HIGHEST
+    # (Z, num_nt) rates per electron and per positron
+    pa_el = jnp.matmul(n_pos * w, vs.T, precision=hi)
+    pa_po = jnp.matmul(f_nt * w, vs, precision=hi)
     dne = -n_e[:, None] * f_nt * pa_el
     dnp = -n_pos * n_e[:, None] * pa_po
     return dne, dnp

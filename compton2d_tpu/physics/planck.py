@@ -35,8 +35,7 @@ def sample_planck(
         inv_m = jnp.ones(shape, dtype)
     else:
         rn = jax.random.uniform(k2, shape, dtype=jnp.float32) * _ZETA4
-        # compare-count form of searchsorted (TPU searchsorted lowers
-        # to a gather while-loop)
+        # compare-count form of searchsorted
         cdf = jnp.asarray(_CDF_M, jnp.float32)
         m = jnp.sum(
             (cdf[None, :] < rn[..., None]).astype(jnp.int32), axis=-1

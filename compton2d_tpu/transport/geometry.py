@@ -7,7 +7,7 @@ Re-implements the tracker's geometry block
   along the current direction;
 - the post-move direction update.
 
-Differences from the reference (deliberate, TPU-first):
+Differences from the reference (deliberate, for vectorized tracking):
 
 - the azimuth is carried as a unit vector (cphi, sphi) = (cos, sin) of
   the angle between the horizontal velocity component and the local

@@ -3,7 +3,7 @@
 The reference caps the census at 5e6 photons per rank and hard-stops the
 whole run on overflow (``/root/reference/src/general.pa:7``,
 ``src/imctrk2d.f:573-577``); its only in-flight control is the silent
-weight-floor kill (``imctrk2d.f:81-91``). With fixed-capacity TPU slot
+weight-floor kill (``imctrk2d.f:81-91``). With fixed-capacity slot
 arrays a saturated census would instead silently starve fresh emission
 (the ``e_src_lost`` tally). This module replaces both failure modes with
 *weight-preserving Russian roulette*:
@@ -49,63 +49,6 @@ def _roulette_weight(w: jnp.ndarray, alive: jnp.ndarray, target):
 
     lo, hi = jax.lax.fori_loop(0, 32, body, (lo, hi))
     return jnp.sqrt(lo * hi)
-
-
-def zone_sort(photons: PhotonArray, nz: int, nr: int, bucket_z: int):
-    """Stable counting sort of the photon SoA by zone bucket
-    (``zid // bucket_z``; dead slots to the back), so the Pallas
-    kernel's tiles are zone-coherent — required by the windowed-table
-    mode (flight_pallas2.WIN_Z) where each tile sees a 2*bucket_z-zone
-    table window, and the lever BASELINE.md round-4 named for
-    large-grid sweep cost.
-
-    All-matmul/cumsum construction (no argsort — a 131k-slot TPU sort
-    is ~30 ms): bucket one-hot -> chunked exclusive prefix ranks ->
-    destination = bucket offset + stable rank -> one scatter builds the
-    source permutation, and each SoA leaf is gathered through it.
-    ~15-20 ms/step at 131072 slots; only enabled where the windowed
-    kernel needs it."""
-    n = photons.n_slots
-    nzr = nz * nr
-    n_b = -(-nzr // bucket_z) + 1          # +1: dead-slot bucket
-    zid = (
-        jnp.clip(photons.jz, 0, nz - 1) * nr
-        + jnp.clip(photons.kr, 0, nr - 1)
-    )
-    bucket = jnp.where(photons.alive, zid // bucket_z, n_b - 1).astype(
-        jnp.int32
-    )
-    oh = (
-        bucket[:, None]
-        == jax.lax.broadcasted_iota(jnp.int32, (1, n_b), 1)
-    ).astype(jnp.float32)
-    # chunked stable rank: within-chunk exclusive cumsum + chunk bases
-    m = 1024
-    c = -(-n // m)
-    oh_c = oh.reshape(c, m, n_b) if c * m == n else jnp.pad(
-        oh, [(0, c * m - n), (0, 0)]
-    ).reshape(c, m, n_b)
-    chunk_tot = jnp.sum(oh_c, axis=1)                  # (c, n_b)
-    chunk_base = jnp.cumsum(chunk_tot, axis=0) - chunk_tot
-    within = jnp.cumsum(oh_c, axis=1) - oh_c           # exclusive
-    rank_all = (within + chunk_base[:, None, :]).reshape(
-        c * m, n_b
-    )[:n]
-    rank = jnp.sum(rank_all * oh, axis=1).astype(jnp.int32)
-    counts = jnp.sum(chunk_tot, axis=0)
-    offsets = jnp.cumsum(counts) - counts
-    # offsets[bucket] as a one-hot matvec (slot counts < 2^24, exact
-    # in f32; avoids a TPU gather)
-    dest = (
-        jnp.dot(oh, offsets, preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST)
-        .astype(jnp.int32)
-        + rank
-    )
-    src = jnp.zeros((n,), jnp.int32).at[dest].set(
-        jnp.arange(n, dtype=jnp.int32)
-    )
-    return jax.tree_util.tree_map(lambda a: a[src], photons)
 
 
 def census_roulette(

@@ -100,10 +100,8 @@ def _sample_electron_and_angle(key, znu, draw_electron, max_tries, need):
 def _draw_from_cdf(u, cdf_rows, gnt):
     """Inverse-CDF electron draw; cdf_rows shape (n, num_nt).
 
-    The bin-midpoint lookup is a one-hot matmul rather than
-    ``gnt[idx]`` — per-lane scalar gathers cost ~10 ns each on TPU and
-    this runs inside the rejection retry loop (two gathers x n lanes x
-    tries ~ milliseconds per scatter round)."""
+    The bin-midpoint lookup is a one-hot matmul rather than the
+    ``gnt[idx]`` gather; it runs inside the rejection retry loop."""
     num_nt = gnt.shape[0]
     idx = jnp.sum((cdf_rows < u[:, None]).astype(jnp.int32), axis=-1)
     idx = jnp.clip(idx, 1, num_nt - 1)
@@ -124,8 +122,8 @@ def _kn_ratio_f32(znue):
 
     The closed form's numerator ``4z + gamz*log(1+2z) + O(z^3)``
     cancels to O(z^3), amplifying the platform log error by ~1/z^2 —
-    on TPU (log accurate to ~1e-6 relative) that is O(10%+) errors in
-    the KN *acceptance probability* for z in [0.01, 0.1], the core
+    with an f32 log accurate to ~1e-6 relative that is O(10%+) errors
+    in the KN *acceptance probability* for z in [0.01, 0.1], the core
     Comptonization regime, silently biasing the electron selection.
     The reference's f64 build tolerates its z<=1e-2 cutoff; this f32
     port uses the 7-term series to z = 0.15 (truncation ~1.4e-4 at the

@@ -46,10 +46,10 @@ from compton2d_tpu.state import PhotonArray
 # Quantile resolution of the boundary file-spectrum inverse-CDF bank:
 # the device sampler is a log-e lerp between quantile knots, so
 # spectral structure carrying less than ~1/M of the CDF mass is
-# smeared into one log-linear segment (a deliberate approximation —
-# the exact per-bin binary search costs ~1 ms per (n,)-gather x
-# log2(nf) on TPU). M = 4096 resolves features down to 2.4e-4 of the
-# total flux, well under MC noise at feasible photon counts.
+# smeared into one log-linear segment (a deliberate approximation in
+# place of an exact per-bin binary search of log2(nf) (n,)-sized
+# gathers). M = 4096 resolves features down to 2.4e-4 of the total
+# flux, well under MC noise at feasible photon counts.
 SPEC_INV_M = 4096
 
 
@@ -194,9 +194,8 @@ def compute_budget(
 
 
 def _take1(vec, idx):
-    """vec[idx] for per-photon int idx via a one-hot matmul (TPU
-    scalar gathers cost ~10 ns/element; the (n, m) @ (m,) matvec is
-    ~free for the small per-zone/per-category vectors here)."""
+    """vec[idx] for per-photon int idx via an (n, m) @ (m,) one-hot
+    matvec over the small per-zone/per-category vectors here."""
     m = vec.shape[0]
     oh = (
         idx[:, None] == jax.lax.broadcasted_iota(jnp.int32, (1, m), 1)
@@ -232,8 +231,7 @@ def emit(
     rank = jnp.cumsum(free.astype(jnp.int32)) - 1       # rank among free
     is_new = free & (rank < budget.n_new)
     # category for this slot's photon
-    # compare-count form of searchsorted(side='right') — TPU
-    # searchsorted lowers to a gather while-loop
+    # compare-count form of searchsorted(side='right')
     cat = jnp.sum(
         (budget.cum_counts[None, :] <= rank[:, None]).astype(jnp.int32),
         axis=1,
@@ -362,10 +360,8 @@ def emit(
     # ---------------- energies --------------------------------------
     # volume: inverse-CDF over eps_tot / eps_th (imcvol2d_para.f:166-301).
     # Per-photon CDF rows come via a one-hot matmul over the stacked
-    # [eps_tot; eps_th] table — a per-photon ROW GATHER here costs
-    # ~10 ns/element on TPU (n x n_vol elements/step), the round-2
-    # volume_em lesson; the (n, 2*nzr) @ (2*nzr, n_vol) matmul is
-    # sub-millisecond on the MXU.
+    # [eps_tot; eps_th] table, (n, 2*nzr) @ (2*nzr, n_vol), in place
+    # of a per-photon row gather of n x n_vol elements.
     n_vol = e_ph.shape[0]
     eps_stack = jnp.concatenate(
         [eps_tot.reshape(nzr, -1), eps_th.reshape(nzr, -1)], axis=0
@@ -404,8 +400,7 @@ def emit(
     # one lerp into the host-precomputed log-e quantile table. A bank
     # with only the dummy row (spec_e.shape[0] == 1, a STATIC shape
     # check) means no boundary anywhere uses a file spectrum, so the
-    # sampler — whose per-photon gathers cost ~1 ms each on TPU — is
-    # skipped entirely.
+    # sampler and its per-photon gathers are skipped entirely.
     if src.spec_e.shape[0] > 1:
         sid = jnp.where(
             is_low, src.spec_lower[kr_s], src.spec_upper[kr_s]

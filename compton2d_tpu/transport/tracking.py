@@ -60,7 +60,7 @@ class TrackStatics:
     weight_floor: float = 1.0e-10
     upper_escape_mu_cut: float = 0.98   # imcleak2d.f:303 event filter
     spec_switch: int = 0                # imcleak2d.f:53-58
-    # stratified tail splitting (SourceConfig.strat_split; the TPU-native
+    # stratified tail splitting (SourceConfig.strat_split; the vectorized
     # replacement for imctrk2d.f:593-661 split2/spl3)
     strat_split: bool = False
     strat_icut: int = 0                 # gnt index of the tail boundary
@@ -70,19 +70,12 @@ class TrackStatics:
     # staged-compaction schedule: full width for phase0_iters, then
     # width n/div for the paired iteration budget, remainder at the
     # narrowest width (see transport_step docstring). Off by default:
-    # measured on TPU v5e the early-exit full-width loop already beats
-    # it (the argsort/gather/scatter overhead exceeds the tail savings).
+    # the argsort/gather/scatter overhead has to beat the tail savings
+    # of the early-exit full-width loop, which is not measured yet.
     use_compaction: bool = False
     phase0_iters: int = 16
     phase_divisors: Tuple[int, ...] = (4, 16)
     phase_iters: Tuple[int, ...] = (48, 10_000)
-    # Pallas flight megakernel (plan M4, transport.flight_pallas2):
-    # flight + inlined Compton scatter run on-chip in VMEM tiles; only
-    # boundary (leak) events freeze lanes back to the XLA code above.
-    # Under strat_split the scatter stays in XLA (inline_scatter off)
-    # because the stratified copy-placement needs free-slot logic.
-    use_pallas: bool = False
-    pallas_interpret: bool = False   # CPU debugging of the kernel
 
 
 class TrackContext(NamedTuple):
@@ -135,14 +128,15 @@ def _loggrid_interp(table, zid, e, log0, dlog):
 
 def zone_accum(vals, zid, nzr):
     """Deterministic segment-sum of per-photon values into the (small)
-    zone axis via a one-hot matmul — MXU-friendly, ~10x faster on TPU
-    than a sort-based scatter-add for nzr << n. ``vals``: (n,) or
-    (n, k) channels; returns (nzr,) / (nzr, k).
+    zone axis via a one-hot matmul (a fixed summation order, unlike an
+    atomic scatter-add). ``vals``: (n,) or (n, k) channels; returns
+    (nzr,) / (nzr, k).
 
-    Precision.HIGHEST: at the default MXU precision the VALUE operand
-    is truncated to bf16 (~3 significant digits per element), which
-    degrades physics-bearing tallies to ~1e-3 relative; full-f32
-    passes keep the one-hot sum exact to f32 accumulation order."""
+    Precision.HIGHEST: at a reduced matmul precision (bf16 or TF32
+    operands) the VALUE operand keeps ~3 significant digits per
+    element, which degrades physics-bearing tallies to ~1e-3 relative;
+    full-f32 passes keep the one-hot sum exact to f32 accumulation
+    order."""
     oh = (
         zid[:, None] == jax.lax.broadcasted_iota(jnp.int32, (1, nzr), 1)
     ).astype(jnp.float32)
@@ -160,11 +154,9 @@ def zone_accum(vals, zid, nzr):
 def hist2d_accum(vals, zid, nzr, bins, n_bins):
     """Deterministic 2-D histogram sum((zid, bins) <- vals) as a
     two-sided one-hot matmul: (n_bins, n) @ (n, nzr), both one-hots
-    fused from iota-compares. Replaces ``.at[zid, bins].add`` — the
-    XLA scatter lowers to a serialized/sort-based op on TPU (~1.4 ms
-    at 131072 slots into 32x400) while this MXU matmul is far cheaper.
-    Precision.HIGHEST so the value operand is not truncated to bf16
-    (see zone_accum)."""
+    fused from iota-compares, in place of ``.at[zid, bins].add``.
+    Precision.HIGHEST so the value operand is not truncated (see
+    zone_accum)."""
     ohz = (
         zid[:, None] == jax.lax.broadcasted_iota(jnp.int32, (1, nzr), 1)
     ).astype(jnp.float32) * vals[:, None]
@@ -193,8 +185,7 @@ def loggrid_bin(e, log0, dlog, n_bins):
 
 def spectral_bin(hu, e):
     """Spectrum bin index, -1 if outside [hu_0, hu_N]
-    (get_bin, imcleak2d.f:342-371). Compare-count instead of
-    searchsorted: the latter lowers to a gather while-loop on TPU."""
+    (get_bin, imcleak2d.f:342-371), as a compare-count."""
     e_c = e.astype(hu.dtype)
     i = jnp.sum(
         (hu[None, :] < e_c[:, None]).astype(jnp.int32), axis=1
@@ -247,10 +238,6 @@ def transport_step(
     """
     n = photons.n_slots
     it0 = jnp.int32(0)
-    if st.use_pallas:
-        return _transport_step_pallas(
-            photons, tallies, events, key, ctx, st
-        )
     if not st.use_compaction:
         photons, tallies, events, it_fin = _flight_phase(
             photons, tallies, events, key, ctx, st, st.max_iters, it0
@@ -489,185 +476,10 @@ def _flight_phase(
     return photons, tallies, events, it_fin
 
 
-def _transport_step_pallas(
-    photons: PhotonArray,
-    tallies: Tallies,
-    events: EventBuffer,
-    key: jax.Array,
-    ctx: TrackContext,
-    st: TrackStatics,
-) -> Tuple[PhotonArray, Tallies, EventBuffer]:
-    """v2 Pallas tracking (transport.flight_pallas2): flight AND the
-    Compton scatter sampler run on-chip; a kernel entry only ends at
-    census, domain exit (leak), or straggler cutoff. Each outer round
-    handles the kernel-frozen leaks (boundary physics + event records,
-    :func:`_leak`) and re-enters — rounds/step is ~1 plus the
-    reflection-chain depth, vs ~5.3 scatter-bounded rounds in v1.
-
-    Under ``st.strat_split`` the scatter is NOT inlined (the
-    stratified tail-splitting needs XLA free-slot placement):
-    collisions freeze with FLAG_SCATTER and :func:`apply_scatter`
-    handles them per round, the v1 flow.
-
-    Iteration budget: the kernel's per-entry bound is st.max_iters and
-    the outer loop stops once the accumulated kernel iterations reach
-    st.max_iters, so total flight iterations are hard-bounded by
-    2*max_iters (one final entry may start with budget nearly spent) —
-    not max_iters^2 (advisor r3 finding #5). Lanes cut off mid-scatter
-    go to census unscattered, exactly like v1's frozen-scatter lanes
-    at round exhaustion."""
-    from compton2d_tpu.transport import flight_pallas2 as fp2
-
-    n = photons.n_slots
-    nzr = st.nz * st.nr
-    num_nt = ctx.cdf_nt.shape[1]
-    n_tiles = n // fp2.TILE
-    inline = not st.strat_split
-
-    # NOTE on zone-sorting: the kernel's table sweeps cost O(tile zone
-    # spread), so zone-sorting the slots before the kernel makes the
-    # per-leg lookups ~O(1). Measured on v5e, however, a 131k-slot
-    # argsort + permute/unpermute costs ~32 ms/step — more than the
-    # sweep time it saves at reference-scale grids (TPU sorts are
-    # bitonic and slow) — so tiles run zone-mixed and the sweeps span
-    # [min(zid), max(zid)] of each tile. A cheap clustering (emission
-    # already fills free slots in zone order) is the open lever for
-    # very large grids.
-    # windowed-table mode for grids beyond the VMEM zone cap (the
-    # reference's 99x99 ceiling, general.pa:10-12): tables stay
-    # zone-blocked, each tile reads a 2*WIN_Z-zone window (see
-    # flight_pallas2 module docstring). Requires the driver's
-    # zone-sort prepass for tile zone-coherence.
-    win_z = 0 if nzr <= fp2.MAX_ZONES else fp2.WIN_Z
-    ktab, dims = fp2.build_kernel_tables(
-        ctx.opac_zone, ctx.kgg_zone, ctx.cdf_nt, ctx.gnt,
-        ctx.r_edges, ctx.z_edges,
-        ctx.e_ph_log0, ctx.e_ph_dlog, ctx.e_gg_log0, ctx.e_gg_dlog,
-        win_z=win_z,
-    )
-
-    def geom_dummy(jn, kn, ph):
-        from compton2d_tpu.transport.geometry import FlightGeom
-
-        return FlightGeom(
-            trldb=jnp.zeros_like(ph.r), jnew=jn, knew=kn,
-            rbnd=ph.r, zbnd=ph.z,
-        )
-
-    def body(carry):
-        rnd, it_tot, ph, tl, ev = carry
-        kit = jax.random.fold_in(key, rnd)
-        k_seed, k_scat, k_refl1, k_refl2 = jax.random.split(kit, 4)
-        seeds = jax.lax.bitcast_convert_type(
-            jax.random.bits(k_seed, (n_tiles,), jnp.uint32), jnp.int32
-        )
-        (e, w, r, z, mu, cphi, sphi, dcen, jz, kr, alive, mode_n,
-         flag, jn, kn, it_used, ekill, esct, epair, sct_cnt, tall,
-         iglog, delog) = fp2.flight_step_v2(
-            ph.e, ph.w, ph.w0, ph.r, ph.z, ph.mu, ph.cphi, ph.sphi,
-            ph.dcen, ph.jz, ph.kr, ph.alive, ktab, seeds,
-            dims=dims, nz=st.nz, nr=st.nr,
-            pair_switch=bool(st.pair_switch),
-            inline_scatter=inline,
-            weight_floor=float(st.weight_floor),
-            max_iters=int(st.max_iters),
-            max_tries=int(st.max_scatter_tries),
-            interpret=bool(st.pallas_interpret),
-            win_z=win_z,
-        )
-        ph = ph._replace(
-            e=e, w=w, r=r, z=z, mu=mu, cphi=cphi, sphi=sphi,
-            dcen=dcen, jz=jz, kr=kr, alive=alive,
-        )
-        tl = tl._replace(
-            edep=tl.edep + tall[0].reshape(st.nz, st.nr),
-            prdep=tl.prdep + tall[1].reshape(st.nz, st.nr),
-            e_killed=tl.e_killed + ekill,
-            e_scatter=tl.e_scatter + esct,
-            e_pair_abs=tl.e_pair_abs + epair,
-        )
-        if inline:
-            # e_ic / n_esp attribution from the per-lane event logs
-            # (one one-hot matmul per round; events beyond K_LOG kept
-            # their energy in edep/esct, only this histogram drops
-            # them — counted in n_sct_overflow so the loss is visible)
-            tl = tl._replace(
-                n_sct_overflow=tl.n_sct_overflow
-                + jnp.sum(jnp.maximum(sct_cnt - fp2.K_LOG, 0))
-            )
-            logged = iglog.reshape(-1) >= 0
-            ig_flat = jnp.where(logged, iglog.reshape(-1), 0)
-            de_flat = jnp.where(logged, delog.reshape(-1), 0.0)
-            tl = tl._replace(
-                e_ic=tl.e_ic + zone_accum(de_flat, ig_flat, num_nt),
-                n_esp=tl.n_esp + zone_accum(
-                    logged.astype(jnp.float32), ig_flat, num_nt
-                ),
-            )
-
-        # --- kernel-frozen leaks (boundary physics + event records) --
-        leak_mask = (flag == fp2.FLAG_LEAK) & ph.alive
-        g = geom_dummy(jn, kn, ph)
-        ph, tl, ev = jax.lax.cond(
-            jnp.any(leak_mask),
-            lambda ph, tl, ev: _leak(
-                ph, tl, ev, leak_mask, g, ctx, st, k_refl1, k_refl2
-            ),
-            lambda ph, tl, ev: (ph, tl, ev),
-            ph, tl, ev,
-        )
-
-        if not inline:
-            # strat-split mode: scatters freeze to XLA (v1 flow)
-            sct = (flag == fp2.FLAG_SCATTER) & ph.alive
-            zid = (
-                jnp.clip(ph.jz, 0, st.nz - 1) * st.nr
-                + jnp.clip(ph.kr, 0, st.nr - 1)
-            )
-            sig_s = jnp.maximum(
-                _loggrid_interp(
-                    ctx.opac_zone, zid, ph.e, ctx.e_ph_log0,
-                    ctx.e_ph_dlog,
-                )[:, 0],
-                1e-30,
-            )
-            ph, tl = jax.lax.cond(
-                jnp.any(sct),
-                lambda ph, tl: apply_scatter(
-                    ph, tl, sct, zid, sig_s, k_scat, ctx, st
-                ),
-                lambda ph, tl: (ph, tl),
-                ph, tl,
-            )
-        return rnd + 1, it_tot + it_used, ph, tl, ev
-
-    def cond(carry):
-        rnd, it_tot, ph, _, _ = carry
-        return (
-            (rnd < st.max_iters)
-            & (it_tot < st.max_iters)
-            & jnp.any(ph.alive & (ph.dcen > 0.0))
-        )
-
-    rnd_fin, _, photons, tallies, events = jax.lax.while_loop(
-        cond, body,
-        (jnp.int32(0), jnp.int32(0), photons, tallies, events),
-    )
-    tallies = tallies._replace(trk_rounds=tallies.trk_rounds + rnd_fin)
-    # stragglers past the budget go to census as-is (a lane cut off
-    # mid-scatter censuses unscattered, matching v1's frozen-scatter
-    # semantics at exhaustion)
-    photons = photons._replace(
-        dcen=jnp.where(photons.alive, 0.0, photons.dcen)
-    )
-    return photons, tallies, events
-
-
 def _zone_rows(table, zid, nzr):
-    """Per-photon row lookup table[zid] as a one-hot matmul — on TPU a
-    row *gather* costs ~10 ns/element (26M elements/round at bench
-    shapes); the (n, nzr) @ (nzr, k) matmul is ~0.05 ms. Falls back to
-    the gather for large zone counts where the one-hot would dominate."""
+    """Per-photon row lookup table[zid] as an (n, nzr) @ (nzr, k)
+    one-hot matmul for small zone counts, and a plain row gather above
+    256 zones, where the one-hot operand would dominate."""
     if table.shape[0] > 256:
         return table[zid]
     oh = (
@@ -679,8 +491,8 @@ def _zone_rows(table, zid, nzr):
 
 def apply_scatter(ph, tl, sct, zid, sig_s, k_scat, ctx, st):
     """Execute Compton scatters for the masked photons (the ikind=3
-    branch, imctrk2d.f:580-684), shared by the XLA flight loop and the
-    Pallas-kernel outer loop. ``sig_s`` is each photon's current-zone
+    branch, imctrk2d.f:580-684) inside the flight loop. ``sig_s`` is
+    each photon's current-zone
     scattering opacity (the stratified-splitting normalizer)."""
     n = ph.n_slots
 
@@ -710,9 +522,8 @@ def apply_scatter(ph, tl, sct, zid, sig_s, k_scat, ctx, st):
         rank = jnp.cumsum(want.astype(jnp.int32)) - 1
         placed = want & ((rank + 1) * M <= n_free)
         # index of the (r+1)-th free slot, r < n_free: a scatter of
-        # slot ids by free-rank + per-copy gathers (searchsorted over
-        # an (n,)-sized cumulative lowers to ~17 full-width gather
-        # rounds on TPU — ~20 ms/call at bench shapes)
+        # slot ids by free-rank + per-copy gathers, in place of a
+        # searchsorted over the (n,)-sized cumulative count
         slot_of_rank = jnp.zeros((n,), jnp.int32).at[
             jnp.where(free, cfree - 1, n)
         ].set(jnp.arange(n, dtype=jnp.int32), mode="drop")
@@ -867,7 +678,7 @@ def _leak(ph, tl, ev, mask, g, ctx, st, k1, k2):
         )
         die_inner = jnp.zeros((n,), bool)
 
-    # leakage tallies (one-hot matmul accums; TPU scatters are slow)
+    # leakage tallies (deterministic one-hot matmul accums)
     tl = tl._replace(
         erlk_outer=tl.erlk_outer + zone_accum(
             jnp.where(at_outer, ph.w, 0.0), jz_c, st.nz
@@ -888,8 +699,7 @@ def _leak(ph, tl, ev, mask, g, ctx, st, k1, k2):
     # the outer disk (imcleak2d.f:104-165, 216-272)
     def sample_reflection(e_in, w_in, k_cdf, k_e):
         n_ref = ctx.e_ref.shape[0]
-        # compare-count form of searchsorted (avoids the TPU gather
-        # while-loop lowering)
+        # compare-count form of searchsorted
         n_in = jnp.clip(
             jnp.sum(
                 (

@@ -209,11 +209,11 @@ def test_degenerate_emission_spectrum_no_topbin_photons():
 
 
 def test_hist2d_accum_matches_scatter_add_exactly():
-    """hist2d_accum (the one-hot matmul histogram that replaced TPU
+    """hist2d_accum (the one-hot matmul histogram that replaced
     scatter-adds) must reproduce the f64 scatter-add reference to f32
     accumulation accuracy — guards the Precision.HIGHEST requirement
-    (default MXU precision truncates the value operand to bf16 and
-    costs ~3 digits; round-5 code-review finding)."""
+    (a reduced matmul precision truncates the value operand to bf16
+    or TF32 and costs ~3 digits)."""
     import jax
     import numpy as np
 

@@ -1,4 +1,4 @@
-"""Analytic physics goldens (the oracle substitutes of VERDICT item 2;
+"""Analytic physics goldens (oracle substitutes;
 the reference Fortran cannot be compiled in this image — no gfortran /
 MPI — so these pin the same physics to closed-form limits instead):
 

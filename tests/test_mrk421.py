@@ -55,8 +55,8 @@ def test_mrk421_committed_artifact_sanity():
       above 1 GeV observed, positive flux above 10 MeV, AND a
       populated TeV band — positive nuFnu in the reference's band 7
       (1e9-1e10 keV observed, postprocessing/mrk421_lc.input) with
-      >= 20 TeV-band event records over all angles (VERDICT r5 task 3;
-      produced with strat_gamma_c = 3e4 + strat_copies = 64, the
+      >= 20 TeV-band event records over all angles (produced with
+      strat_gamma_c = 3e4 + strat_copies = 64, the
       split3-analogue tail multiplicity).
     """
     import json

@@ -95,7 +95,7 @@ def test_hybrid_distribution_has_tail():
 
 
 def test_sync_kernel_device_matches_host():
-    """The VPU closed-form synchrotron kernel (hot path) must match the
+    """The closed-form synchrotron kernel (hot path) must match the
     host float64 fit (volume2d.f:206-216) to f32 accuracy."""
     import jax.numpy as jnp
     from compton2d_tpu.physics.emissivity import (

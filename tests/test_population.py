@@ -101,51 +101,3 @@ def test_scattering_dominated_run_never_starves():
 
     lost_off, _, _ = run(False)
     assert lost_off > 0.0         # without control the source starves
-
-
-def test_zone_sort_is_stable_zone_bucket_permutation():
-    """population.zone_sort: exact stable counting sort of the photon
-    SoA by zone bucket with dead slots last — every leaf permuted by
-    the same permutation, bucket order non-decreasing over alive
-    slots, within-bucket slot order preserved (stability)."""
-    import jax
-    import jax.numpy as jnp
-    import numpy as np
-
-    from compton2d_tpu.state import PhotonArray
-    from compton2d_tpu.transport.population import zone_sort
-
-    n, nz, nr, bz = 4096, 12, 10, 16
-    k = jax.random.PRNGKey(3)
-    ks = jax.random.split(k, 4)
-    jz = jax.random.randint(ks[0], (n,), 0, nz)
-    kr = jax.random.randint(ks[1], (n,), 0, nr)
-    alive = jax.random.uniform(ks[2], (n,)) < 0.7
-    tag = jnp.arange(n, dtype=jnp.float32)      # identity tracer
-    ph = PhotonArray(
-        e=tag, w=tag * 2.0, w0=tag + 0.5,
-        r=tag, z=tag, mu=tag, cphi=tag, sphi=tag, dcen=tag,
-        jz=jz.astype(jnp.int32), kr=kr.astype(jnp.int32), alive=alive,
-    )
-    out = zone_sort(ph, nz, nr, bz)
-    src = np.asarray(out.e, np.int64)           # recovered permutation
-    assert sorted(src.tolist()) == list(range(n))  # a true permutation
-    # every leaf moved by the same permutation
-    np.testing.assert_array_equal(np.asarray(out.w), src * 2.0)
-    np.testing.assert_array_equal(
-        np.asarray(out.jz), np.asarray(jz)[src]
-    )
-    np.testing.assert_array_equal(
-        np.asarray(out.alive), np.asarray(alive)[src]
-    )
-    # alive first, dead last
-    a = np.asarray(out.alive)
-    n_alive = int(a.sum())
-    assert a[:n_alive].all() and not a[n_alive:].any()
-    # bucket order non-decreasing over alive slots; stable within
-    zid = np.asarray(jz)[src] * nr + np.asarray(kr)[src]
-    b = zid[:n_alive] // bz
-    assert np.all(np.diff(b) >= 0)
-    for bb in np.unique(b):
-        idx = src[:n_alive][b == bb]
-        assert np.all(np.diff(idx) > 0)   # original order preserved

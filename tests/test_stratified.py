@@ -3,7 +3,7 @@ sampler must be unbiased against the acceptance-rejection sampler, the
 stratum combination must reproduce the full estimator, and end-to-end
 splitting must populate the deep-KN tail at an exact energy audit.
 
-This is the TPU-native replacement for the reference's split2/spl3
+This is the vectorized replacement for the reference's split2/spl3
 in-flight splitting (imctrk2d.f:593-661) whose resample-until-big loop
 is biased; the stratified scheme is unbiased by construction."""
 import dataclasses

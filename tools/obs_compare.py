@@ -1,11 +1,11 @@
 """Compare the computed Mrk 421 SED against the reference repository's
-observational datasets (VERDICT r4 missing #1 / r5 task 4).
+observational datasets.
 
 The reference code was validated by fitting Mrk 421 / PKS 1510 data
 under ``data/observations/`` with SuperMongo overlay macros
 (``data/plot_20111220.sm``; SURVEY.md §4 "observational data are the
-de-facto acceptance tests"). This tool closes that loop for the
-TPU framework: it loads the Mrk 421 SED datasets shipped with the
+de-facto acceptance tests"). This tool closes that loop for this
+framework: it loads the Mrk 421 SED datasets shipped with the
 reference, overlays the computed observer-frame SED (Doppler-boosted,
 Gamma = 33, absolute nuFnu at Earth from tools/run_mrk421.py's
 pspt-convention normalization at d_L = 134 Mpc), and writes

@@ -1,7 +1,7 @@
 """Micro-profile of the sourcing/tally path components at bench shapes.
 
 Times each component standalone under jit on the current default device
-(the real TPU chip when run without platform overrides)."""
+(the GPU when run without platform overrides)."""
 from __future__ import annotations
 
 import os

@@ -1,5 +1,5 @@
 """Run the Mrk 421 SSC flare flagship workload to completion and write
-the science artifact (VERDICT r3 #6).
+the science artifact.
 
 The reference's de-facto acceptance test is the Mrk 421 workflow
 (README.how_to_run_the_code + postprocessing/mrk421_lc.input: Gamma=33,
@@ -57,7 +57,7 @@ def main():
     # events and the GeV-TeV bands would be empty at any feasible nst —
     # the reason the reference's production inputs set split2/split3
     # (imctrk2d.f:726-736) and this framework has strat_split
-    # (BASELINE.md round-3 FOM: TeV x2.53)
+    # (tools/strat_fom.py measures its figure of merit)
     ap.add_argument("--no-strat", dest="strat", action="store_false",
                     default=True)
     # tail-stratum boundary: gamma_c ~ 3e4 targets the TeV band
@@ -72,8 +72,11 @@ def main():
 
     import dataclasses
 
+    from compton2d_tpu import runtime
     from compton2d_tpu.examples import MRK421_BANDS, mrk421
     from compton2d_tpu.io import postprocess as pp
+
+    print(f"# compile cache: {runtime.enable_compile_cache()}")
 
     os.makedirs(args.out, exist_ok=True)
     sim = mrk421(nst=args.nst, n_slots=args.n_slots, n_e=args.n_e)

@@ -1,10 +1,10 @@
-"""Figure-of-merit measurement for the stratified tail splitting
-(VERDICT r2 #5): run the Mrk 421 flagship workload with
+"""Figure-of-merit measurement for the stratified tail splitting:
+run the Mrk 421 flagship workload with
 ``strat_split`` off and on at the same seed/steps, and report the
 relative MC error of the time-integrated flux per LC band plus the
 variance-reduction figure of merit FOM = 1/(sigma_rel^2 * t_wall).
 
-The stratified scheme is the unbiased TPU-native replacement for the
+The stratified scheme is the unbiased vectorized replacement for the
 reference's split2/spl3 in-flight splitting (imctrk2d.f:1-7,593-661,
 726-736), whose stated purpose is exactly this: populate the rare
 high-energy upscattering tail.
@@ -94,7 +94,7 @@ def main():
     # three configurations: splitting off; the round-3 default
     # (gamma_c=1e3, one tail copy); and the TeV-targeted setting used
     # for the committed artifact (gamma_c=3e4, strat_copies=64 — the
-    # split3-analogue multiplicity, VERDICT r5 task 3)
+    # split3-analogue multiplicity)
     w_off, r_off = run(False, steps, nst)
     w_on, r_on = run(True, steps, nst)
     w_tev, r_tev = run(True, steps, nst, gamma_c=3.0e4, copies=64)

@@ -1,9 +1,9 @@
 """Weak-scaling harness: fixed photon work per device, 1 -> N processes.
 
 Without multi-chip hardware this exercises the full multi-process path
-(jax.distributed + global photon mesh + DCN-style psum reductions +
-per-process event spooling) on virtual CPU devices — the TPU analogue
-of testing an MPI code on a laptop (SURVEY.md §4). The reference's
+(jax.distributed + global photon mesh + cross-process psum reductions
++ per-process event spooling) on virtual CPU devices — the analogue of
+testing an MPI code on a laptop (SURVEY.md §4). The reference's
 scaling story was MPI ranks + imcredist rebalancing; here equal
 per-device budgets make rebalancing unnecessary by construction.
 
